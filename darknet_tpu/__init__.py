@@ -1,11 +1,11 @@
-"""darknet_tpu — a TPU-native re-implementation of the yolo-core capability set.
+"""darknet_tpu — a JAX re-implementation of the yolo-core capability set.
 
 The reference (Ravicmoon/darknet, a trimmed AlexeyAB/darknet fork) is an
 interpreter over a layer array with hand-written CPU/CUDA kernels.  This
 package is a *compiler* from the same artifact contracts — the `.cfg` model
 dialect, the binary `.weights` format and the `.data` dataset descriptor —
-into a single XLA program, jitted once and executed on TPU, with Pallas
-kernels where XLA's default fusion is not enough.
+into a single XLA program, jitted once and executed on an NVIDIA GPU (or,
+for the tests and the reference-parity gates, on the CPU).
 
 Public surface (mirrors the capability of `yolo_core.h:625-663`):
 

@@ -1,7 +1,7 @@
 // yolo_host: native host-side runtime kernels for darknet_tpu.
 //
 // The reference's host-side box pipeline (box.cpp NmsSort, detector.cpp PR
-// accumulation) is native C++; these are the TPU framework's equivalents for
+// accumulation) is native C++; these are this framework's equivalents for
 // the host stages that remain off-device: greedy/DIoU NMS over thousands of
 // candidates (mAP validation runs at thresh=.005) and the PR-curve
 // accumulation.  Built as a plain C ABI shared library, loaded via ctypes.

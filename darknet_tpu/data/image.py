@@ -4,7 +4,8 @@ The reference represents images as CHW float32 in [0,1], RGB
 (`image.h:19-25`); loading goes through stb or OpenCV (`image_opencv.cpp:
 205-247`), and *inference* resizing is a plain bilinear resize — NO
 letterbox (`yolo_core.cpp:104-110` uses cv::resize).  We use HWC float32
-RGB in [0,1] (TPU-friendly channels-last) and provide both the darknet
+RGB in [0,1] (channels-last, like the NHWC runtime tensors) and provide
+both the darknet
 `resize_image` bilinear (exact match for parity tests) and fast OpenCV
 resize for the production path.
 """

@@ -9,8 +9,8 @@ hands over the ready batch and immediately kicks off the next one.  Mosaic
 
 Worker modes: the default thread pool matches the reference's
 6-pthreads-per-GPU design, but Python threads serialize on the GIL for
-the numpy parts of the augmentation — measured 20 img/s of 608 mosaic
-on this box, BELOW the 70 img/s one-chip training rate.  `processes=N`
+the numpy parts of the augmentation, so one process cannot feed a fast
+training step.  `processes=N`
 switches the per-sample stage to a spawn-based process pool (same seeds,
 same batches bit-for-bit — `_sample_one` is a pure function of (paths,
 seed, dims, aug config)); batch assembly (mosaic/mixup composition)
@@ -18,7 +18,7 @@ stays in the single assembler thread.  Spawned workers import only
 numpy+cv2, never jax: unpickling `_worker_sample` imports this module,
 whose whole import chain (darknet_tpu/__init__ is lazy per PEP 562,
 data.augment/data.image are numpy-only) avoids jax — and spawning (not
-forking) avoids deadlocking the parent's TPU runtime threads.
+forking) avoids deadlocking the parent's device runtime threads.
 """
 
 from __future__ import annotations
@@ -100,8 +100,8 @@ class DetectionLoader:
         # in the assembler thread (overlapped with device compute) so the
         # host->device ship is half-width.  Bit-identical to uploading f32
         # when the consuming step computes in the same dtype: every conv
-        # entry casts its input to compute_dtype anyway (ops/conv.py:43,
-        # ops/stem.py:125,186).  Augmentation/mosaic math stays f32; only
+        # entry casts its input to compute_dtype anyway
+        # (ops/conv.conv2d_raw).  Augmentation/mosaic math stays f32; only
         # the finished batch is cast.  Truths stay f32 (tiny).
         self.out_dtype = out_dtype
         self.aug = dict(jitter=jitter, hue=hue, saturation=saturation,

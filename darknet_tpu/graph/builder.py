@@ -320,7 +320,7 @@ def _parse_conv(s: Section, p: dict, index: int, layers: list[LayerIR]) -> ConvI
         groups = 1
     groups = max(groups, 1)
     # accepted no-op: XNOR binary output buffers (parser.cpp:196) have no
-    # analogue on the MXU — the int8 path is the low-precision mode here
+    # analogue here — the int8 path is the low-precision mode
     s.get_int("bin_output", 0)
 
     blur_sx, blur_sy = stride_x, stride_y

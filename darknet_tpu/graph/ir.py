@@ -10,7 +10,7 @@ shapes; the parameter arrays live in a separate PyTree (see
 Shape conventions: the IR records darknet-style (h, w, c) per layer —
 channel-major bookkeeping identical to the reference so the printed layer
 table and `.weights` layout match — while the runtime tensors are NHWC
-(TPU-friendly, channels on the 128-lane minor dimension).
+(channels minor, the layout cuDNN's NHWC convolutions take).
 """
 
 from __future__ import annotations

@@ -37,24 +37,6 @@ def _liveness(graph) -> set:
     return live
 
 
-def region_conv_indices(graph, *, fused_bn: bool = True) -> set:
-    """Conv layer indices covered by the inference fused-region plans —
-    mirrors make_forward's planning (stem fold included when live).  Used
-    by Network.calibrate_int8 to decide which convs get a static
-    activation scale for the packed int8 serving path."""
-    from darknet_tpu.ops.pallas.fused_region import plan_graph_regions
-    from darknet_tpu.ops.stem import stem_pattern
-
-    stem = bool(fused_bn and stem_pattern(graph)
-                and 0 not in _liveness(graph))
-    idx = set()
-    for pl in plan_graph_regions(graph, stem=stem).values():
-        for k in range(pl.start, pl.stop + 1):
-            if graph.layers[k].kind == "convolutional":
-                idx.add(k)
-    return idx
-
-
 def local_block(x, p, l):
     """[local] locally-connected layer (local_layer.c): per-position conv
     weights.  Patches via XLA's patch extractor, then a per-location
@@ -98,13 +80,8 @@ def _aa_split(y, l):
 
 
 def make_forward(graph, *, train: bool = False, compute_dtype=None,
-                 fused_bn: bool = False, stem_s2d: bool | None = None,
-                 pack_first_region: bool = False,
-                 remat: bool | str = False,
-                 fuse_regions: bool | None = None,
-                 region_interpret: bool = False,
+                 fused_bn: bool = False, remat: bool = False,
                  probe_conv_absmax: bool = False,
-                 stem_train: bool | None = None,
                  train_act_dtype=None):
     """Build `forward(params, x, rng=None) -> dict`.
 
@@ -114,12 +91,8 @@ def make_forward(graph, *, train: bool = False, compute_dtype=None,
       "bn_stats": {layer_index: (mean, var)} when train
       "raw_heads": raw (pre-activation) head conv outputs when train
       "conv_in_absmax": {layer_index: scalar max|input|} when
-        probe_conv_absmax — the int8 calibration probe (forces
-        fuse_regions/stem off so every conv is observed)
+        probe_conv_absmax — the int8 calibration probe
     """
-    if probe_conv_absmax:
-        fuse_regions = False
-        stem_s2d = False
     live = _liveness(graph)
     layers = graph.layers
     # layers whose output a head consumes directly (heads read the
@@ -131,74 +104,6 @@ def make_forward(graph, *, train: bool = False, compute_dtype=None,
     # masks and the [crop] layer's random offset/flip (crop_layer.c:64-67)
     n_dropout = sum(1 for l in layers
                     if l.kind in ("dropout", "crop")) if train else 0
-
-    # space-to-depth stem fusion (ops/stem.py): inference-only layout
-    # rewrite of the conv-s1 + conv-s2 opener; needs BN folded and layer 0's
-    # raw output unreferenced by any later route/shortcut
-    if stem_s2d is None:
-        stem_s2d = fused_bn and not train
-    if stem_s2d:
-        from darknet_tpu.ops.stem import stem_pattern
-
-        stem_s2d = stem_pattern(graph) and 0 not in live
-
-    # training-mode packed stem (ops/stem.fused_stem_train): the same S2D
-    # algebra with LIVE batch norm in the packed layout — the layout fix
-    # for the opening C=3 conv in training (trace-measured 30 ms of a
-    # 214 ms yolov4-608 b16 step: C=3 starves the MXU and the lane-padded
-    # 608²x32 tensor plus its remat duplicate dominate HBM traffic).
-    # TPU-only by default so CPU golden gates stay byte-stable; tests
-    # force it on to prove exactness against the per-layer path.
-    if stem_train is None:
-        stem_train = train and jax.default_backend() == "tpu"
-    if stem_train:
-        from darknet_tpu.ops.stem import stem_pattern
-
-        stem_train = (train and not probe_conv_absmax
-                      and stem_pattern(graph) and 0 not in live
-                      and not any(l.stopbackward or l.onlyforward
-                                  or l.train_only_bn
-                                  for l in layers[:2]))
-
-    # fused-region Pallas kernels (ops/pallas/fused_region.py): whole
-    # lane-starved CSP stages (incl. the s2d stem) run as single kernels —
-    # one HBM read + one write per stage.  Inference + folded BN only.
-    if fuse_regions is None:
-        fuse_regions = ((fused_bn or train)
-                        and jax.default_backend() == "tpu")
-    region_runners = {}
-    region_plans = {}
-    if fuse_regions and (fused_bn or train):
-        from darknet_tpu.ops.pallas.fused_region import (plan_graph_regions,
-                                                         region_runner)
-
-        mode = fuse_regions if isinstance(fuse_regions, str) else "xla"
-        region_plans = plan_graph_regions(graph, stem=stem_s2d, train=train,
-                                          first=2 if stem_train else 0)
-        if 0 in region_plans:
-            stem_s2d = False        # superseded by the stem region kernel
-        region_runners = {
-            a: region_runner(p,
-                             compute_dtype=compute_dtype or jnp.float32,
-                             interpret=region_interpret, mode=mode,
-                             train=train,
-                             act_dtype=train_act_dtype if train else None,
-                             step_remat=(train and remat == "steps"))
-            for a, p in region_plans.items()}
-    region_plan = None
-    if stem_s2d:
-        from darknet_tpu.ops.stem import fused_stem
-
-        # NOTE: extending the packing through the first CSP block
-        # (ops/packed_region.py) measured SLOWER on v5e — the dense packed
-        # kernels 4x the FLOPs of the compute-bound 64-channel convs,
-        # outweighing the 2x lane-padding savings.  Opt in explicitly via
-        # pack_first_region=True only for bandwidth-starved cases.
-        if pack_first_region:
-            from darknet_tpu.ops.packed_region import (plan_region,
-                                                       run_region)
-
-            region_plan = plan_region(graph, 2)
 
     def forward(params, x, rng=None, *, _lo=0, _hi=None, _extern=None):
         """_lo/_hi/_extern: pipeline-stage slicing (parallel/pipeline.py) —
@@ -221,63 +126,10 @@ def make_forward(graph, *, train: bool = False, compute_dtype=None,
         drop_i = sum(1 for l in layers[:_lo]
                      if l.kind in ("dropout", "crop")) if _lo else 0
 
-        start = 0
-        if stem_s2d and _lo == 0:
-            cur = fused_stem(cur, params[0], params[1], layers[0],
-                             layers[1], compute_dtype=compute_dtype)
-            if 1 in live:
-                outs[1] = cur
-            start = 2
-            if region_plan is not None:
-                cur, start = run_region(graph, params, region_plan, cur,
-                                        outs, compute_dtype=compute_dtype)
-                if (start - 1) in live:
-                    outs[start - 1] = cur
-        elif stem_train and _lo == 0 and (_hi is None or _hi >= 2):
-            from darknet_tpu.ops.stem import fused_stem_train
-
-            with jax.named_scope("L000-001_stem"):
-                stem_fn = lambda x, p0, p1: fused_stem_train(
-                    x, p0, p1, layers[0], layers[1],
-                    compute_dtype=compute_dtype,
-                    res_dtype=(train_act_dtype if 1 not in head_feed
-                               else None))
-                if remat:
-                    stem_fn = jax.checkpoint(stem_fn)
-                cur, st01 = stem_fn(cur, params[0], params[1])
-                bn_stats.update(st01)
-                if train_act_dtype is not None and 1 not in head_feed:
-                    cur = cur.astype(train_act_dtype)
-            if 1 in live:
-                outs[1] = cur
-            start = 2
-
-        skip_until = max(start, _lo)
         for i, l in enumerate(layers):
             if _hi is not None and i >= _hi:
                 break
-            if i < skip_until:
-                continue
-            if i in region_runners:
-                plan = region_plans[i]
-                with jax.named_scope(f"L{i:03d}-{plan.stop:03d}_region"):
-                    if train:
-                        runner = region_runners[i]
-                        if remat == "all":
-                            # remat="all" also recomputes the region (the
-                            # largest feature maps, 304²/152²) in the
-                            # backward pass.  Measured on yolov4-608 b8:
-                            # saves memory but costs ~8% step time vs
-                            # conv-only remat, so it is a separate opt-in
-                            # level.
-                            runner = jax.checkpoint(runner)
-                        cur, r_stats = runner(params, cur)
-                        bn_stats.update(r_stats)
-                    else:
-                        cur = region_runners[i](params, cur)
-                skip_until = plan.stop + 1
-                if plan.stop in live:
-                    outs[plan.stop] = cur
+            if i < _lo:
                 continue
             # named_scope: per-layer HLO metadata so profiler
             # traces (utils/profiler.trace_report) can attribute
@@ -456,9 +308,4 @@ def make_forward(graph, *, train: bool = False, compute_dtype=None,
             result["conv_in_absmax"] = conv_absmax
         return result
 
-    # expose compile-time structure decisions for callers that do layer-
-    # index bookkeeping over the emitted program (parallel/pipeline.py's
-    # cut planner must match the fusion layout actually emitted)
-    forward.stem_train = bool(stem_train)
-    forward.region_plans = region_plans
     return forward

@@ -131,24 +131,13 @@ class Network:
             net._cfg_text = None
         return net
 
-    def calibrate_int8(self, images, *, region_int8: bool = False) -> None:
+    def calibrate_int8(self, images) -> None:
         """Static int8 activation calibration (TensorRT-style): record each
         quantized conv's input range over `images` (iterable of HWC or BHWC
         float arrays, network-sized) and bake per-tensor scales so serving
         skips the per-conv dynamic absmax reduce
-        (ops/conv.conv_block_int8).
-
-        region_int8 additionally attaches scales to the convs covered by
-        fused regions (the lane-starved front stages that
-        quantize_conv_params' min_ch filter skips): with a static scale
-        present, the packed region runner executes those steps on the
-        MXU's int8 path too (fused_region._run_steps_xla), bit-exact with
-        the unpacked int8 chain.  OFF by default: measured ~1% SLOWER at
-        yolov4-608 b128 (same-process A/B, NOTES.md) — this stack's int8
-        dots are only ~1.11x bf16 and the packed front is layout-bound,
-        so the extra quantize VPU work nets out negative.  Turn on only
-        for full-int8 deployment consistency.  Convs feeding detection
-        heads stay full-precision either way."""
+        (ops/conv.conv_block_int8).  Convs feeding detection heads stay
+        full-precision."""
         if not any("w_q" in p for p in self.params):
             # nothing quantized (int8=False, or no eligible convs) — no-op
             return
@@ -159,7 +148,7 @@ class Network:
         absmax = paramlib.calibrate_conv_input_scales(
             self.graph, self.params, batches,
             compute_dtype=self.compute_dtype)
-        self._apply_calibration(absmax, region_int8=region_int8)
+        self._apply_calibration(absmax)
 
     def save_calibration(self, path) -> None:
         """Persist the calibrated per-conv input ranges (the TensorRT
@@ -176,23 +165,16 @@ class Network:
             np.savez(f, **{str(k): np.asarray(v, np.float32)
                            for k, v in self._calib_absmax.items()})
 
-    def load_calibration(self, path, *, region_int8: bool = False) -> None:
+    def load_calibration(self, path) -> None:
         """Apply input scales previously saved by save_calibration."""
         data = np.load(path)
         absmax = {int(k): float(data[k]) for k in data.files}
-        self._apply_calibration(absmax, region_int8=region_int8)
+        self._apply_calibration(absmax)
 
-    def _apply_calibration(self, absmax: dict, *, region_int8: bool) -> None:
+    def _apply_calibration(self, absmax: dict) -> None:
         self._calib_absmax = dict(absmax)
-        extra = set()
-        if region_int8 and self.fused:
-            from darknet_tpu.nn.emit import region_conv_indices
-
-            extra = region_conv_indices(self.graph, fused_bn=self.fused)
-            extra -= {l.index - 1 for l in self.graph.layers
-                      if l.kind in ("yolo", "gaussian_yolo", "detection")}
         self.params = paramlib.apply_conv_input_scales(
-            self.params, absmax, graph=self.graph, extra=extra)
+            self.params, absmax, graph=self.graph)
         self._fwd_cache.clear()
 
     @property
@@ -212,15 +194,15 @@ class Network:
         bit-parity with the host path.  bench.py measures this exact
         function.
 
-        mesh: a `jax.sharding.Mesh` scales SERVING across chips — the
+        mesh: a `jax.sharding.Mesh` scales SERVING across cards — the
         batch axis shards over its "dp" axis (and feature-map H over an
         optional "sp" axis, halo exchanges inserted by GSPMD exactly as
         in parallel/spatial.py); params replicate, outputs stay
-        batch-sharded so each chip's top-k detections transfer from its
+        batch-sharded so each card's top-k detections transfer from its
         own HBM.  The reference has no multi-GPU inference at all
         (ValidateDetector/ProcImage are single-device,
-        detector.cpp:326/yolo_core.cpp:104) — this is the TPU-native
-        serving scale-out."""
+        detector.cpp:326/yolo_core.cpp:104) — this is the serving
+        scale-out."""
         key = ("dev", batch, h, w, thresh, nms, top_k, score_dtype, mesh)
         if key not in self._fwd_cache:
             fwd = make_forward(self.graph, train=False,
@@ -295,12 +277,12 @@ class Network:
                        score_dtype=None) -> None:
         """Serialize the complete serving program — forward + decode +
         top-k + device NMS with the weights baked in as constants — to a
-        portable `jax.export` artifact (StableHLO): the TPU-native
-        analogue of a TensorRT engine.  Deploy the one file and run it
+        portable `jax.export` artifact (StableHLO): the analogue of a
+        TensorRT engine.  Deploy the one file and run it
         with `run_exported_serving`; neither the cfg, the weights, nor
         the graph builder are needed at serving time.  The artifact is
         specialized to (batch, net dims, thresholds) and to the
-        platform it was exported on (TPU on a TPU host)."""
+        platform it was exported on (CUDA on a GPU host)."""
         from jax import export as jexport
 
         fn = self._device_detect_fn(batch, self.net.h, self.net.w,

@@ -1,17 +1,18 @@
-"""Convolution blocks: conv + bias/batchnorm + activation, NHWC on the MXU.
+"""Convolution blocks: conv + bias/batchnorm + activation, NHWC.
 
 The reference forwards a conv layer as im2col + GEMM (+cuDNN on GPU) with a
 separate batch-norm pass and an activation epilogue
 (`convolutional_layer.cpp:1128-1305`, `convolutional_kernels.cu:252-552`).
-On TPU the whole block is one `lax.conv_general_dilated` (lowered straight
-onto the MXU) with the BN/bias/activation fused into the epilogue by XLA.
+Here the whole block is one `lax.conv_general_dilated` (on the GPU, a cuDNN
+NHWC convolution) with the BN/bias/activation fused into the epilogue by
+XLA.
 
 Numerics:
 * inference BN uses rolling stats with ``sqrt(var + 1e-5)`` (the GPU/fused
   path, `blas_kernels.cu:144`, `network.cpp:660`);
 * training BN computes batch mean/(biased) variance and updates rolling
   stats with 0.9/0.1 (`batchnorm_layer.cpp:221-224`);
-* compute can run in bf16 (MXU native) with f32 accumulation via
+* compute can run in bf16 (tensor cores) with f32 accumulation via
   ``preferred_element_type``; params stay f32.
 """
 
@@ -32,16 +33,19 @@ def conv2d_raw(x, w, *, stride=(1, 1), padding=((0, 0), (0, 0)),
                out_dtype=jnp.float32):
     """Plain convolution, NHWC x HWIO -> NHWC, f32 accumulation.
 
-    When `compute_dtype` is None the op runs in full f32 (Precision.HIGHEST
-    — on TPU that is the 3-pass bf16 scheme, needed for reference parity);
-    pass bf16 for the fast MXU-native production path.  `out_dtype` must
-    equal `compute_dtype` under autodiff (the conv transpose rule requires
-    matching operand/cotangent dtypes).
+    When `compute_dtype` is None or float32 the op runs in full f32
+    (Precision.HIGHEST: without it the GPU may run f32 convolutions in
+    TF32, which breaks reference parity); pass bf16 for the fast
+    tensor-core production path.  `out_dtype` must equal `compute_dtype`
+    under autodiff (the conv transpose rule requires matching
+    operand/cotangent dtypes).
     """
     precision = None
     if compute_dtype is not None:
         x = x.astype(compute_dtype)
         w = w.astype(compute_dtype)
+        if compute_dtype == jnp.float32:
+            precision = lax.Precision.HIGHEST
     else:
         precision = lax.Precision.HIGHEST
         if x.dtype != w.dtype:
@@ -106,14 +110,13 @@ def fold_bn(w, b, scales, mean, var, eps: float = BN_EPS):
 
 def conv_block_int8(x, p, l, *, compute_dtype=jnp.bfloat16):
     """Quantized inference conv: dynamic per-tensor activation int8 +
-    per-output-channel weight int8, int32 accumulation on the MXU's int8
-    path, f32 dequant+bias epilogue, activation in the compute dtype.
+    per-output-channel weight int8, int32 accumulation, f32 dequant+bias
+    epilogue, activation in the compute dtype.
 
-    The TPU-native analogue of the reference's XNOR/binary fast path
-    (gemm.c:1334 bit-GEMM, convolutional_layer.cpp:1005-1120): darknet
-    binarizes dynamically per forward with a per-filter mean; int8 with
-    per-channel absmax scales is the MXU equivalent (measured 1.1-1.3x
-    bf16 conv rate on v5e; bit-XNOR itself has no MXU mapping).
+    The analogue of the reference's XNOR/binary fast path (gemm.c:1334
+    bit-GEMM, convolutional_layer.cpp:1005-1120): darknet binarizes
+    dynamically per forward with a per-filter mean; int8 with per-channel
+    absmax scales is the tensor-core equivalent.
 
     `p` must carry "w_q" (int8 HWIO) and "w_scale" ((N,) f32) from
     nn/params.quantize_conv_params; BN must already be folded.  When `p`
@@ -192,8 +195,8 @@ def conv_block(x, p, l, *, train: bool = False, compute_dtype=None,
             from darknet_tpu.ops.train_epilogue import bn_act_train
 
             y, bn_stats = bn_act_train(
-                l.activation, 1, res_dtype if keep_lp else None,
-                res_dtype, y, p["scales"], p["b"])
+                l.activation, res_dtype if keep_lp else None, res_dtype, y,
+                p["scales"], p["b"])
             if getattr(l, "antialiasing", 0):
                 y = antialias_blur(y, l)
             return y, bn_stats
@@ -205,7 +208,7 @@ def conv_block(x, p, l, *, train: bool = False, compute_dtype=None,
 
     if compute_dtype is not None and not train:
         # fast path: run the activation (and the next layer's input) at the
-        # compute dtype — bf16 VPU throughput is 2x f32
+        # compute dtype — half the bytes of f32
         y = y.astype(compute_dtype)
     y = apply_activation(y, l.activation)
     if getattr(l, "antialiasing", 0):

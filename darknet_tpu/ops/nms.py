@@ -116,14 +116,15 @@ def nms_device(boxes, probs, thresh: float, kind: str = "greedynms",
     shared (N,N) similarity matrix (vmapped); N is static.
 
     greedy kept[i] = active[i] & no surviving higher-ranked j with
-    sim>thresh.  Two TPU adaptations of the serial greedy loop:
+    sim>thresh.  Two adaptations of the serial greedy loop to a
+    data-parallel device:
 
     1. No argsort/gather: rank_j < rank_i (stable descending sort) is
        exactly (p_j > p_i) | (p_j == p_i & j < i), broadcast against the
        SHARED similarity matrix — the per-class [order][:, order] gather
        was the dominant cost.
-    2. No serial rank loop (N scatter steps execute pathologically on
-       this backend): dependencies run strictly down ranks (a DAG), so
+    2. No serial rank loop (N dependent scatter steps serialize the
+       device): dependencies run strictly down ranks (a DAG), so
        the exact kept-set is squeezed between monotone bounds
        Lo' = f(Hi), Hi' = f(Lo) with f(K)[i] = active[i] & !∃j: K[j] &
        P[i,j].  Ranks with suppression-chain depth <= t are decided

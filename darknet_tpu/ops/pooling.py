@@ -27,8 +27,8 @@ from darknet_tpu.ops.conv import antialias_blur
 # ------------------------------------------------------- stride-1 maxpool
 # The SPP block's 5/9/13 stride-1 pools dominate training-time pooling
 # cost: autodiff of a max chain (or reduce_window) lowers the backward to
-# select-and-scatter / pad+add chains that run pathologically slowly on
-# TPU (trace-measured 21 ms of a 214 ms yolov4-608 b16 step).  Custom VJP:
+# select-and-scatter / pad+add chains, which serialize on scatters.
+# Custom VJP:
 # forward is one reduce_window pass; backward distributes each window's
 # cotangent to the positions equal to the window max via size^2 shifted
 # fused multiply-adds — no scatter.  Gradient equals the reference's

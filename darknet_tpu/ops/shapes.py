@@ -1,8 +1,8 @@
 """Shape/wiring ops: route, shortcut, upsample, reorg, scale_channels,
 dropout/dropblock, crop.
 
-These are the data-movement layers of the cfg dialect; on TPU they are pure
-jnp reshapes/concats that XLA fuses into neighbours.
+These are the data-movement layers of the cfg dialect: pure jnp
+reshapes/concats that XLA fuses into neighbours.
 """
 
 from __future__ import annotations

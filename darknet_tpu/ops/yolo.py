@@ -67,11 +67,9 @@ def yolo_decode(activated, l, net_w: int, net_h: int,
     NMS IoU and the mAP gates need full coordinate precision.
 
     layout="planar" (order="native" only) returns boxes as a 4-tuple of
-    (B, H*W*A) f32 arrays instead of one (B, H*W*A, 4) array.  A
-    trailing dim of 4 occupies 4 of the 128 vector lanes in the output
-    tiling (up to 32x write amplification); planar coordinates are
-    lane-dense, and box math (IoU, NMS) consumes per-coordinate vectors
-    anyway.
+    (B, H*W*A) f32 arrays instead of one (B, H*W*A, 4) array: each
+    coordinate is contiguous, and box math (IoU, NMS) consumes
+    per-coordinate vectors anyway.
     """
     e = 4 + 1 + l.classes
     b, h, w, _ = activated.shape

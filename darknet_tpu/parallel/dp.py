@@ -2,7 +2,7 @@
 
 One logical jitted program with the batch sharded over the `dp` axis and
 parameters replicated; XLA partitions the conv FLOPs per device and inserts
-`psum` all-reduces over ICI for the parameter gradients and the (global)
+`psum` all-reduces (NCCL over NVLink on the GPU) for the parameter gradients and the (global)
 batch-norm statistics.  This subsumes the reference's TrainNetworks /
 SyncNetworks machinery (`network_kernels.cu:295-484`) with per-step exact
 synchronization.

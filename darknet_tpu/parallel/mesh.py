@@ -2,11 +2,12 @@
 
 The reference's only distribution strategy is data parallelism via
 pthread-per-GPU replicas with periodic PCIe weight averaging
-(`network_kernels.cu:295-484`, SURVEY.md §2.7).  The TPU-native equivalent
-is a `jax.sharding.Mesh` with the batch dimension sharded over the `dp`
-axis: XLA inserts per-step gradient all-reduces over ICI — strictly
+(`network_kernels.cu:295-484`, SURVEY.md §2.7).  The equivalent here is a
+`jax.sharding.Mesh` with the batch dimension sharded over the `dp` axis:
+XLA inserts per-step gradient all-reduces (NCCL over NVLink) — strictly
 stronger than 4-iter weight averaging (and BN statistics become global
-across replicas, i.e. sync-BN, matching the single-chip math exactly).
+across replicas, i.e. sync-BN, matching the single-card math exactly).
+The mesh is flat: NVLink joins every card to every other at one rate.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Multi-host (DCN) input sharding.
 
-Single-host meshes feed `shard_batch` directly; on a multi-host TPU slice
+Single-host meshes feed `shard_batch` directly; on a multi-host cluster
 each process loads only its local shard of the global batch and assembles
 the global array with `jax.make_array_from_process_local_data` — the
-TPU-native equivalent of the reference's `GetPartialData` pointer split
+equivalent of the reference's `GetPartialData` pointer split
 (data.cpp:890-901), with DCN handling the cross-host layout.
 """
 

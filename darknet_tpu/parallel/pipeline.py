@@ -1,13 +1,13 @@
 """Pipeline parallelism — stage-partitioned inference across devices.
 
 The reference has no model-parallel mode (SURVEY.md §2.7); this is the
-TPU-native layer-axis split completing the dp/sp/tp set: the layer graph
+layer-axis split completing the dp/sp/tp set: the layer graph
 is cut into contiguous stages balanced by BFLOPs, each stage's params
 live only on its device, and micro-batches stream through the stages.
 JAX's async dispatch is the pipeline schedule — stage s of micro-batch m
 runs concurrently with stage s-1 of micro-batch m+1 because each jitted
 stage call only depends on its own inputs; device-to-device transfers
-ride ICI on real multi-chip hardware.
+ride NVLink between cards.
 
 Cross-stage dataflow is computed from the graph: a cut at layer c must
 carry layer c-1's output (the sequential `cur`) plus every earlier
@@ -51,7 +51,7 @@ def crossing_set(graph, cut: int) -> list:
 
 def plan_cuts(graph, n_stages: int, *, forbidden=()) -> list:
     """Stage boundaries [c_1..c_{S-1}] balancing cumulative BFLOPs,
-    snapped away from `forbidden` positions (fused-region interiors)."""
+    snapped away from `forbidden` positions (share_index spans)."""
     bf = np.array([l.bflops or 0.0 for l in graph.layers])
     cum = np.cumsum(bf)
     total = cum[-1] if len(cum) else 0.0
@@ -78,31 +78,15 @@ def plan_cuts(graph, n_stages: int, *, forbidden=()) -> list:
             if bwd in forbidden:
                 raise ValueError(
                     f"pipeline stage {s}: no legal cut in [{lo}, {n - 1}] — "
-                    f"every position is inside a fused region or "
-                    f"share_index span; reduce n_stages or disable fusion")
+                    f"every position is inside a share_index span; "
+                    f"reduce n_stages")
             c = bwd
         cuts.append(c)
     return cuts
 
 
-def _forbidden_cuts(graph, *, fuse_regions, stem_s2d, train=False,
-                    fwd=None) -> set:
+def _forbidden_cuts(graph) -> set:
     out = set()
-    if stem_s2d:
-        out.add(1)                    # the s2d stem fuses layers 0-1
-    if fwd is not None and getattr(fwd, "stem_train", False):
-        out.add(1)                    # packed train stem fuses layers 0-1
-    if fwd is not None and getattr(fwd, "region_plans", None) is not None:
-        # use the plans the emitted program ACTUALLY uses (they shift
-        # when the packed train stem consumes layers 0-1)
-        for a, pl in fwd.region_plans.items():
-            out.update(range(a + 1, pl.stop + 1))
-    elif fuse_regions:
-        from darknet_tpu.ops.pallas.fused_region import plan_graph_regions
-
-        for a, pl in plan_graph_regions(graph, stem=stem_s2d,
-                                        train=train).items():
-            out.update(range(a + 1, pl.stop + 1))
     # weight-shared convs (share_index, parser.cpp:211-216) must live in
     # the same stage as their source: a cut between them would leave the
     # borrower reading a param copy the owner's optimizer never updates
@@ -122,21 +106,13 @@ class PipelineForward:
     """
 
     def __init__(self, graph, params, devices, *, compute_dtype=None,
-                 fused_bn: bool = True, fuse_regions=None,
-                 microbatches: int = 2):
+                 fused_bn: bool = True, microbatches: int = 2):
         from darknet_tpu.nn.emit import make_forward
 
-        if fuse_regions is None:
-            fuse_regions = (fused_bn
-                            and jax.default_backend() == "tpu")
-        stem = False        # stem fold stays off: cut bookkeeping is per
-        #                     layer index and the fold rewrites 0-1
         fwd = make_forward(graph, compute_dtype=compute_dtype,
-                           fused_bn=fused_bn, fuse_regions=fuse_regions,
-                           stem_s2d=stem)
+                           fused_bn=fused_bn)
         n_stages = len(devices)
-        forb = _forbidden_cuts(graph, fuse_regions=fuse_regions,
-                               stem_s2d=stem, fwd=fwd)
+        forb = _forbidden_cuts(graph)
         cuts = plan_cuts(graph, n_stages, forbidden=forb)
         bounds = [0] + cuts + [len(graph.layers)]
         self.devices = list(devices)
@@ -221,8 +197,7 @@ class PipelineTrain:
 
     def __init__(self, graph, params, devices, *, microbatches: int = 2,
                  use_adam: bool | None = None, compute_dtype=None,
-                 fuse_regions: bool | None = None, remat: bool | str = False,
-                 iter0: int = 0, stem_train: bool | None = None):
+                 remat: bool = False, iter0: int = 0):
         from darknet_tpu.nn.emit import make_forward
         from darknet_tpu.train import optimizer as opt
         from darknet_tpu.train.step import head_delta, init_opt_state
@@ -233,14 +208,10 @@ class PipelineTrain:
         self.use_adam = net.adam if use_adam is None else use_adam
         self.microbatches = microbatches
         self.devices = list(devices)
-        if fuse_regions is None:
-            fuse_regions = jax.default_backend() == "tpu"
         fwd = make_forward(graph, train=True, compute_dtype=compute_dtype,
-                           fuse_regions=fuse_regions, remat=remat,
-                           stem_train=stem_train)
+                           remat=remat)
         n_stages = len(self.devices)
-        forb = _forbidden_cuts(graph, fuse_regions=fuse_regions,
-                               stem_s2d=False, train=True, fwd=fwd)
+        forb = _forbidden_cuts(graph)
         cuts = plan_cuts(graph, n_stages, forbidden=forb)
         bounds = [0] + cuts + [len(graph.layers)]
         head_layers = [(i, l) for i, l in enumerate(graph.layers)

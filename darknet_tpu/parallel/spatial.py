@@ -1,11 +1,11 @@
 """Spatial partitioning — the CNN analogue of sequence/context parallelism
 (SURVEY.md §2.7/§5): shard the feature maps' H dimension across the mesh for
-inputs too large for one chip's HBM (608^2+, batched video).
+inputs too large for one card's HBM (608^2+, batched video).
 
-TPU-native design: annotate the input NHWC array with `P(None, "sp")` (H
+Design: annotate the input NHWC array with `P(None, "sp")` (H
 sharded) and jit the same emitted forward — XLA's GSPMD partitioner inserts
 the conv halo exchanges (`CollectivePermute` of the kernel-overlap rows)
-automatically over ICI.  This replaces hand-written halo machinery; the
+automatically.  This replaces hand-written halo machinery; the
 mesh axis is the single source of truth.
 
 Composes with data parallelism: a 2D mesh ("dp", "sp") shards batch on dp

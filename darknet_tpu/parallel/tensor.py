@@ -2,16 +2,16 @@
 
 The reference scales only by replicating whole networks per GPU
 (SURVEY.md §2.7: `SyncNetworks` weight averaging, `network_kernels.cu`);
-it has no model-parallel mode.  On TPU the idiomatic extension is GSPMD
+it has no model-parallel mode.  The idiomatic extension is GSPMD
 tensor parallelism: annotate each conv's HWIO weight with
 ``P(None, None, None, "tp")`` (output-channel sharded) and its per-filter
 vectors (bias, BN scales/rolling stats, int8 w_scale) with ``P("tp")``,
 then jit the SAME emitted forward/train step over the mesh — XLA's
 partitioner gives every device its slice of the filters and inserts the
-activation all-gathers over ICI.  Params, gradients AND optimizer slots
+activation all-gathers.  Params, gradients AND optimizer slots
 all live sharded (a Megatron-style split composed with the ZeRO-style
 memory win), so the per-device HBM footprint of weights+opt shrinks by
-the tp factor — the enabler for cfg models wider than one chip.
+the tp factor — the enabler for cfg models wider than one card.
 
 Eligibility: plain convs (groups == 1, no share_index) whose filter count
 divides the axis size.  Head convs (n = anchors*(classes+5), usually
@@ -98,17 +98,14 @@ def make_tp_forward(graph, mesh, *, axis: str = "tp",
                     fused_bn: bool = True, decode: bool = True):
     """Jitted inference fn with conv filters sharded over `axis` (and the
     batch over `dp_axis` when the mesh has it).  Same output contract as
-    parallel.spatial.make_spatial_forward.  Fused regions / stem s2d are
-    disabled: their packed layouts interleave channels across the pixel
-    phases, which would break the clean filter-dim sharding."""
+    parallel.spatial.make_spatial_forward."""
     import jax.numpy as jnp
 
     from darknet_tpu.nn.emit import make_forward
     from darknet_tpu.ops import yolo as yoloops
 
     fwd = make_forward(graph, compute_dtype=compute_dtype,
-                       fused_bn=fused_bn, fuse_regions=False,
-                       stem_s2d=False)
+                       fused_bn=fused_bn)
     heads = [l for l in graph.heads() if l.kind in ("yolo", "gaussian_yolo")]
     net_w, net_h = graph.net.w, graph.net.h
 
@@ -149,8 +146,7 @@ def make_tp_forward(graph, mesh, *, axis: str = "tp",
 def make_tp_train_step(graph, mesh, *, axis: str = "tp",
                        dp_axis: str | None = "dp",
                        sp_axis: str | None = None,
-                       accum: int = 1, compute_dtype=None,
-                       stem_train: bool | None = None):
+                       accum: int = 1, compute_dtype=None):
     """One jitted training step with filters+grads+opt slots sharded over
     `axis`, the batch over `dp_axis`, and optionally the image height
     over `sp_axis` (3D dp x sp x tp composition).  The emitted step is
@@ -161,8 +157,7 @@ def make_tp_train_step(graph, mesh, *, axis: str = "tp",
     from darknet_tpu.train.step import make_train_step
 
     inner = make_train_step(graph, jit=False, accum=accum,
-                            compute_dtype=compute_dtype,
-                            stem_train=stem_train)
+                            compute_dtype=compute_dtype)
     rep = NamedSharding(mesh, P())
     dp = dp_axis if (dp_axis and dp_axis in mesh.shape) else None
     sp = sp_axis if (sp_axis and sp_axis in mesh.shape) else None

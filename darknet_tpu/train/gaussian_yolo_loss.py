@@ -108,8 +108,7 @@ def gaussian_yolo_head_delta(raw, truths, l, net_w: int, net_h: int):
     v_raw = raw.reshape(b, h, w, A, e)
 
     # activations (ForwardGaussianYoloLayer:491-517), computed on the raw
-    # (B,H,W,A*E) channel layout with a channel mask — the (...,A,E) view
-    # pads A=3->8 sublanes and E->128 lanes on TPU (see yolo_loss.py):
+    # (B,H,W,A*E) channel layout with a channel mask (see yolo_loss.py):
     # sigmoid on {mux,sigx,muy,sigy, sigw, sigh, obj, classes}; muw/muh
     # stay raw; scale_x_y affine on mux/muy
     ch = np.arange(A * e) % e

@@ -94,43 +94,15 @@ def aggregate_micro_metrics(m_stk):
     return m
 
 
-def make_train_step(graph, *, compute_dtype=None, use_adam: bool | None = None,
-                    donate: bool = True, jit: bool = True,
-                    remat: bool | str = False, accum: int = 1,
-                    stem_train: bool | None = None,
-                    train_act_dtype=None):
-    """Build `train_step(params, opt_state, x, truths, rng, lr)`.
-
-    x: (B, H, W, C) input batch; truths: (B, max_boxes, 5).
-    Returns (params, opt_state, cost, metrics).
-
-    train_act_dtype (e.g. jnp.bfloat16) carries fused-region interior
-    activations (the vjp residuals) at reduced precision — BN statistics
-    and everything outside regions stay f32.  Default None = f32.
-
-    remat levels (each adds recompute, saves residual memory/traffic):
-      False    — store everything;
-      True     — checkpoint plain conv blocks (+ the packed stem);
-      "steps"  — + checkpoint each fused-region conv step (stores only
-                 the slot tensors, recomputes conv+BN+act in backward);
-      "all"    — + checkpoint whole regions (stores only region inputs).
-
-    accum > 1 replays the reference's subdivision loop
-    (TrainNetwork, network.cpp:210-230: `subdiv` micro-batches of
-    `net.batch` images each, gradients accumulated into weight_updates,
-    ONE optimizer update at the end).  The micro-batches run under
-    lax.scan, so only one micro-batch's activations are live at a time —
-    this is what bounds training memory at 608² exactly like the
-    reference's batch/subdivisions split does.  B must be divisible by
-    accum.  BN batch statistics are per-micro-batch with sequential
-    rolling updates, matching the per-datum forward.
-    """
+def make_micro_grads(graph, *, compute_dtype=None, remat: bool = False,
+                     train_act_dtype=None):
+    """Build `grads(params, x, truths, rng) -> (grads, cost, metrics_list,
+    bn_stats)` for ONE micro-batch: forward, hand-computed head deltas as
+    cotangents, vjp.  This is the gradient make_train_step accumulates;
+    exposed so a caller can compare it across devices."""
     net = graph.net
-    if use_adam is None:
-        use_adam = net.adam
     fwd = make_forward(graph, train=True, compute_dtype=compute_dtype,
-                       remat=remat, stem_train=stem_train,
-                       train_act_dtype=train_act_dtype)
+                       remat=remat, train_act_dtype=train_act_dtype)
     # every trainable head kind, in layer order (= raw_heads order):
     # yolo/gaussian_yolo (v3/v4), detection (v1), cost (classifier era)
     heads = [l for l in graph.layers
@@ -138,8 +110,6 @@ def make_train_step(graph, *, compute_dtype=None, use_adam: bool | None = None,
     loss_scale = net.loss_scale
 
     def grads_one_batch(params, x, truths, rng):
-        """Forward + head deltas + vjp for ONE micro-batch; returns
-        (grads, cost, metrics_list, bn_stats)."""
         def to_heads(p):
             r = fwd(p, x, rng)
             return r["raw_heads"], r["bn_stats"]
@@ -159,6 +129,43 @@ def make_train_step(graph, *, compute_dtype=None, use_adam: bool | None = None,
             grads = jax.tree_util.tree_map(lambda g: g / loss_scale, grads)
         return grads, jnp.sum(jnp.stack(costs)), metrics_list, bn_stats
 
+    grads_one_batch.n_heads = len(heads)
+    return grads_one_batch
+
+
+def make_train_step(graph, *, compute_dtype=None, use_adam: bool | None = None,
+                    donate: bool = True, jit: bool = True,
+                    remat: bool = False, accum: int = 1,
+                    train_act_dtype=None):
+    """Build `train_step(params, opt_state, x, truths, rng, lr)`.
+
+    x: (B, H, W, C) input batch; truths: (B, max_boxes, 5).
+    Returns (params, opt_state, cost, metrics).
+
+    train_act_dtype (e.g. jnp.bfloat16) carries the interlayer
+    activations (the vjp residuals) at reduced precision — BN statistics
+    and the head-feeding layers stay f32.  Default None = f32.
+
+    remat=True checkpoints the conv blocks: the backward pass recomputes
+    conv+BN+act instead of storing their intermediates.
+
+    accum > 1 replays the reference's subdivision loop
+    (TrainNetwork, network.cpp:210-230: `subdiv` micro-batches of
+    `net.batch` images each, gradients accumulated into weight_updates,
+    ONE optimizer update at the end).  The micro-batches run under
+    lax.scan, so only one micro-batch's activations are live at a time —
+    this is what bounds training memory at 608² exactly like the
+    reference's batch/subdivisions split does.  B must be divisible by
+    accum.  BN batch statistics are per-micro-batch with sequential
+    rolling updates, matching the per-datum forward.
+    """
+    net = graph.net
+    if use_adam is None:
+        use_adam = net.adam
+    grads_one_batch = make_micro_grads(
+        graph, compute_dtype=compute_dtype, remat=remat,
+        train_act_dtype=train_act_dtype)
+    n_heads = grads_one_batch.n_heads
 
     def step(params, opt_state, x, truths, rng, lr):
         if accum > 1:
@@ -236,7 +243,7 @@ def make_train_step(graph, *, compute_dtype=None, use_adam: bool | None = None,
 
         metrics = {
             "loss": sum(m["loss"] for m in metrics_list),
-            "avg_iou": sum(m["avg_iou"] for m in metrics_list) / len(heads),
+            "avg_iou": sum(m["avg_iou"] for m in metrics_list) / n_heads,
             "count": sum(m["count"] for m in metrics_list),
             "class_loss": sum(m["class_loss"] for m in metrics_list),
             "iou_loss_mag": sum(m["iou_loss"] for m in metrics_list),

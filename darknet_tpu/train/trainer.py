@@ -8,8 +8,8 @@ Reproduced behaviours:
 * multi-scale: every 10 iterations pick a random scale in
   [1/rand_coef, rand_coef] (rand_coef = 1.4 or the head's `random` value),
   snapped to `resize_step`; forced to max at the start and during the last
-  100 iterations (detector.cpp:141-183).  On TPU each (w, h) bucket is its
-  own jitted executable, cached — the re-jit replaces ResizeNetwork;
+  100 iterations (detector.cpp:141-183).  Each (w, h) bucket is its own
+  jitted executable, cached — the re-jit replaces ResizeNetwork;
 * EMA avg-loss 0.9/0.1; periodic in-training mAP every
   ``map_step = max(100, iter_per_epoch)`` on held-out data, best-mAP
   checkpoint; checkpoints every 1000 iterations and at the end
@@ -31,6 +31,7 @@ import jax
 import jax.numpy as jnp
 
 from darknet_tpu.data.loader import DetectionLoader
+from darknet_tpu.defaults import platform_defaults
 from darknet_tpu.graph.builder import build_graph
 from darknet_tpu.nn import params as paramlib
 from darknet_tpu.train.schedule import get_lr
@@ -55,41 +56,35 @@ class DetectorTrainer:
         else:
             self.cfg = cfg
         self.mesh = mesh
-        # MXU compute precision: bf16 matmuls/convs with f32 accumulation
-        # on TPU (the production training precision every on-chip number
-        # in NOTES.md was measured at — f32 compute is ~2x slower);
-        # f32 elsewhere so the CPU golden gates stay byte-stable.
-        # Pass compute_dtype=jnp.float32 explicitly for full-precision
-        # training on TPU.
-        if compute_dtype is None and jax.default_backend() == "tpu":
-            compute_dtype = jnp.bfloat16
+        # compute precision, act16 and metric_lag default per platform
+        # (darknet_tpu/defaults.py): bf16 tensor-core operands with f32
+        # accumulation on the GPU, f32 HIGHEST on the CPU so the golden
+        # gates stay byte-stable.  Pass compute_dtype=jnp.float32 for
+        # full-precision training on the card.
+        dflt = platform_defaults()
+        if compute_dtype is None:
+            compute_dtype = dflt.compute_dtype
         self.compute_dtype = compute_dtype
         # rematerialize conv blocks in the backward pass (jax.checkpoint):
         # trades FLOPs for activation memory — the lever beyond
-        # [net] subdivisions for 608^2 training on one chip
+        # [net] subdivisions for 608^2 training on one card
         self.remat = remat
         # reduced-precision interlayer activations (train_act_dtype):
-        # halves the vjp-residual HBM traffic; BN stats stay f32.
-        # Default auto = ON for TPU (measured faster at every yolov4-608
-        # config in the round-4 matrix: b8 no-remat 84.2->83.1 ms, b16
-        # remat 196.3->187.2, b16 no-remat 175.9->168.1 — NOTES.md),
-        # OFF elsewhere so CPU golden gates stay byte-stable.
+        # halves the vjp-residual traffic; BN stats stay f32
         if act16 is None:
-            act16 = jax.default_backend() == "tpu"
+            act16 = dflt.act16
         self.act16 = act16
         # async metrics pipeline: fetch iteration i's (loss, count, ...)
         # floats only once i+metric_lag has been DISPATCHED, keeping
         # `metric_lag` steps in flight instead of blocking on the device
-        # (and, over a remote-TPU tunnel, paying a full RTT) every
-        # iteration.  Training math is untouched — LR, multi-scale
+        # every iteration.  Training math is untouched — LR, multi-scale
         # cadence, mAP cadence and checkpoints are all iteration-keyed,
         # and the queue is fully drained before any evaluate/save/resume
         # boundary — only the log line for iter i prints `metric_lag`
         # iterations later (the reference prints synchronously,
         # detector.cpp:255-266; deviation is display latency only).
-        # Auto: 3 on TPU, 0 elsewhere (CPU gates keep byte-stable logs).
         if metric_lag is None:
-            metric_lag = 3 if jax.default_backend() == "tpu" else 0
+            metric_lag = dflt.metric_lag
         self.metric_lag = max(int(metric_lag), 0)
         self.log = log
         self.save_dir = save_dir
@@ -190,10 +185,9 @@ class DetectorTrainer:
     @staticmethod
     def _auto_procs(loader_processes: int, loader_threads: int) -> int:
         """-1 = auto: spawn-based process workers on multi-core hosts
-        (Python threads serialize the numpy augmentation on the GIL —
-        measured 20 img/s of 608 mosaic vs the 70 img/s one-chip train
-        rate, data/loader.py docstring); thread pool on a single core,
-        where process transfer overhead only subtracts."""
+        (Python threads serialize the numpy augmentation on the GIL,
+        data/loader.py docstring); thread pool on a single core, where
+        process transfer overhead only subtracts."""
         if loader_processes != -1:
             return max(loader_processes, 0)
         ncpu = os.cpu_count() or 1
@@ -203,7 +197,7 @@ class DetectorTrainer:
         """Half-width batch uploads: when the step computes in bf16 and
         the graph opens with a conv (every yolo family — conv entry casts
         its input to compute_dtype, so a host-side pre-cast is
-        bit-identical; ops/conv.py:43, ops/stem.py:125), have the loader
+        bit-identical; ops/conv.conv2d_raw), have the loader
         emit bf16 batches.  Halves the per-iteration host->device ship
         (35 MB -> 17.7 MB at 608 b8), cast cost overlapped in the
         assembler thread.  Graphs opening with [crop] (v1) do pre-conv
@@ -243,8 +237,7 @@ class DetectorTrainer:
             accum = max(g.net.subdiv, 1)
             # donate params+opt buffers: the trainer reassigns both from
             # the step's outputs, so the old buffers are dead — without
-            # donation params/opt/grads triple-reside and yolov4-608 b16
-            # remat OOMs; with it, 227 ms/step (71 img/s) on one v5e chip
+            # donation params/opt/grads triple-reside
             if self.mesh is not None:
                 from darknet_tpu.parallel import make_dp_train_step
 
@@ -341,7 +334,7 @@ class DetectorTrainer:
 
         # graceful preemption: SIGTERM/SIGINT finish the current
         # iteration, save the full resumable state, then return — on
-        # preemptible TPU pods this turns an eviction into an exact
+        # preemptible machines this turns an eviction into an exact
         # resume point (the reference crashes and loses momentum state).
         # Only installable from the main thread; otherwise skipped.
         import signal

@@ -242,10 +242,9 @@ def yolo_head_delta(raw, truths, l, net_w: int, net_h: int):
     v_raw = raw.reshape(b, h, w, A, e)
 
     # inference activations (yolo_activate semantics), computed on the
-    # RAW (B,H,W,A*E) channel layout: the (...,A,E) view pads A=3->8
-    # sublanes and E=85->128 lanes on TPU (~4x wasted VPU/HBM on every
-    # elementwise op over the head tensor); the channel layout is
-    # pad-free and a channel mask selects which entries activate
+    # RAW (B,H,W,A*E) channel layout, with a channel mask selecting
+    # which entries activate (one elementwise pass, no (...,A,E)
+    # relayout)
     ch = np.arange(A * e) % e
     m_sig = jnp.asarray((ch < 2) | (ch >= 4))
     s = jax.nn.sigmoid(raw)
@@ -303,10 +302,9 @@ def _yolo_delta_single(v, v_raw, truth, l, net_w, net_h):
     """Delta for one batch item.  v/v_raw: (H,W,A,E); truth: (T,5).
 
     Internally flattened to (N=H*W*A, E) with the background-IoU lattice
-    in (T, N) layout: N rides the 128-wide lane dimension nearly pad-free
-    (vs the old (H,W,A,T) layout, which padded A=3->8 sublanes and
-    T=90->128 lanes — ~4x wasted VPU work and HBM traffic on the largest
-    loss tensors; measured 1.7x faster on the 76x76 head).  Cell/anchor
+    in (T, N) layout: the long N axis is the minor (contiguous) one,
+    where an (H,W,A,T) layout would put the short A and T axes there.
+    Cell/anchor
     constants (grid coords, per-position anchor dims) are baked as numpy
     arrays — no device gathers for static data."""
     h, w, A, e = v.shape
@@ -419,7 +417,7 @@ def _yolo_delta_single(v, v_raw, truth, l, net_w, net_h):
     # values are writer-independent except via classes_multipliers; we
     # resolve collisions with an explicit last-writer-wins priority
     # (t*total+n), reproducing the C semantics without serial scatters
-    # (which execute pathologically on TPU).
+    # (each a separate dependent device step).
     prior = jnp.concatenate(
         [jnp.zeros((total, 2), jnp.float32), jnp.asarray(
             anchors_np / np.asarray([net_w, net_h], np.float32))],

@@ -18,7 +18,7 @@ File layout (reference `parser.cpp:1590-1876`):
     for transfer learning, parser.cpp:1837-1838).
 
 In-memory parameter convention (the "params PyTree"): a list with one dict
-per layer; convolution weights are stored TPU-style HWIO
+per layer; convolution weights are stored HWIO
 ``(kh, kw, c/groups, n)`` and converted to/from the darknet OIHW order here,
 at the serialization boundary only.  Connected weights are stored
 ``(inputs, outputs)`` (so `y = x @ w + b`).

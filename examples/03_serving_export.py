@@ -2,7 +2,7 @@
 and a deployable jax.export artifact.
 
 Demonstrates:
-  * Network.from_cfg(..., int8=True) — quantized inference (the TPU
+  * Network.from_cfg(..., int8=True) — quantized inference (the
     analogue of the reference's XNOR low-precision path);
   * calibrate_int8 + save/load_calibration — TensorRT-style static
     activation scales (the configuration behind the headline bench);

@@ -1,12 +1,12 @@
 """Multi-chip data parallelism: sharded training step + sharded serving.
 
-Forces an 8-device virtual CPU mesh (works on any machine; on a real TPU
-pod slice remove BOTH the XLA_FLAGS override below and the
-`jax_platforms=cpu` update in main() and the same code runs over ICI).
+Forces an 8-device virtual CPU mesh (works on any machine; on a host with
+several GPUs remove BOTH the XLA_FLAGS override below and the
+`jax_platforms=cpu` update in main() and the same code runs over NVLink).
 Demonstrates:
 
   * parallel.mesh.make_mesh + shard_batch — the device mesh and batch
-    sharding (the TPU-native replacement for the reference's
+    sharding (the replacement for the reference's
     pthread-per-GPU + PCIe weight averaging, network_kernels.cu:295-484);
   * parallel.dp.make_dp_train_step — ONE jitted program with the batch
     sharded over the `dp` axis; XLA inserts the gradient psum;
@@ -89,7 +89,7 @@ def main() -> None:
         np.float32(graph.net.lr))
     print(f"DP train step over {mesh.shape['dp']} devices: "
           f"loss = {float(loss):.3f}")
-    print("gradients were psum-reduced over ICI inside the jitted step — "
+    print("gradients were psum-reduced inside the jitted step — "
           "no host round trips, no periodic weight averaging")
 
 

@@ -1,10 +1,10 @@
 /* darknet_tpu C ABI — mirrors the reference's public surface
  * (yolo_core.h:625-663: LoadNetwork / NetworkPredict / GetNetworkBoxes /
- * NmsSort / FreeDetections) for C/C++ clients of the TPU runtime.
+ * NmsSort / FreeDetections) for C/C++ clients of the JAX runtime.
  *
  * The implementation embeds CPython and drives the darknet_tpu package;
- * the compute runs wherever JAX is configured (TPU by default; set
- * DTPU_PLATFORM=cpu to force CPU).  All calls are GIL-safe.
+ * the compute runs wherever JAX is configured (the GPU when JAX has one;
+ * set DTPU_PLATFORM=cpu to force CPU).  All calls are GIL-safe.
  */
 #ifndef DARKNET_TPU_C_H
 #define DARKNET_TPU_C_H

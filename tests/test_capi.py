@@ -1,6 +1,6 @@
 """C ABI shim (native/capi): the optional C surface mirroring
 yolo_core.h:625-663 (LoadNetwork / NetworkPredict / GetNetworkBoxes) for
-native clients of the TPU runtime.  Builds the shared library + a C demo
+native clients of the JAX runtime.  Builds the shared library + a C demo
 client and runs it end to end in a subprocess."""
 
 import os

@@ -1,4 +1,4 @@
-"""int8 quantized inference path (ops/conv.conv_block_int8) — the TPU
+"""int8 quantized inference path (ops/conv.conv_block_int8) — the
 analogue of the reference's XNOR/binary fast path (gemm.c:1334,
 convolutional_layer.cpp:1005-1120)."""
 
@@ -78,8 +78,8 @@ def test_quantize_eligibility(setup):
 def test_int8_forward_close_to_f32(setup):
     g, params, x = setup
     qp = paramlib.quantize_conv_params(g, params)
-    ref = make_forward(g, fused_bn=True, fuse_regions=False)(params, x)
-    got = make_forward(g, fused_bn=True, fuse_regions=False)(qp, x)
+    ref = make_forward(g, fused_bn=True)(params, x)
+    got = make_forward(g, fused_bn=True)(qp, x)
     a = np.asarray(ref["heads"][0])
     b = np.asarray(got["heads"][0])
     # 8-bit dynamic quantization over 2 conv layers: percent-level error
@@ -103,8 +103,8 @@ def test_calibration_probe_and_static_scales(setup):
     sp = paramlib.apply_conv_input_scales(qp, absmax)
     assert "x_scale" not in sp[0] and "x_scale" in sp[1]
     assert "x_scale" not in sp[3]            # head conv not quantized
-    dyn = make_forward(g, fused_bn=True, fuse_regions=False)(qp, x)
-    sta = make_forward(g, fused_bn=True, fuse_regions=False)(sp, x)
+    dyn = make_forward(g, fused_bn=True)(qp, x)
+    sta = make_forward(g, fused_bn=True)(sp, x)
     # same batch => same scales => near-identical outputs
     np.testing.assert_allclose(np.asarray(sta["heads"][0]),
                                np.asarray(dyn["heads"][0]),
@@ -119,8 +119,8 @@ def test_static_scales_clip_outliers(setup):
     absmax = paramlib.calibrate_conv_input_scales(g, qp, [x])
     sp = paramlib.apply_conv_input_scales(qp, absmax)
     hot = x * 10.0                       # 10x outside calibration range
-    dyn = make_forward(g, fused_bn=True, fuse_regions=False)(qp, hot)
-    sta = make_forward(g, fused_bn=True, fuse_regions=False)(sp, hot)
+    dyn = make_forward(g, fused_bn=True)(qp, hot)
+    sta = make_forward(g, fused_bn=True)(sp, hot)
     d = np.max(np.abs(np.asarray(dyn["heads"][0]) -
                       np.asarray(sta["heads"][0])))
     assert d > 1e-3                      # visibly different: clipping real

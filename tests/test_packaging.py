@@ -33,7 +33,7 @@ def test_wheel_contents(wheel):
         "darknet_tpu/_native/yolo_host.cpp",   # native kernels (pkg data)
         "darknet_tpu/data/synth.py",
         "darknet_tpu/apps/cli.py",
-        "darknet_tpu/ops/pallas/fused_region.py",
+        "darknet_tpu/defaults.py",
         "darknet_tpu/parallel/pipeline.py",
     ]
     for req in required:

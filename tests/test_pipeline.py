@@ -56,8 +56,7 @@ def test_pipeline_tiny_matches_single_device(rng):
     params = paramlib.fuse_conv_batchnorm(g, paramlib.init_params(g, seed=0))
     x = rng.uniform(0, 1, (4, 128, 128, 3)).astype(np.float32)
 
-    ref = make_forward(g, fused_bn=True, fuse_regions=False,
-                       stem_s2d=False)(params, jnp.asarray(x))["heads"]
+    ref = make_forward(g, fused_bn=True)(params, jnp.asarray(x))["heads"]
 
     pf = PipelineForward(g, params, jax.devices()[:4], microbatches=2)
     heads = pf(x)
@@ -200,8 +199,7 @@ def test_pipeline_yolov4_neck_backrefs(rng):
     params = paramlib.fuse_conv_batchnorm(g, paramlib.init_params(g, seed=1))
     x = rng.uniform(0, 1, (2, 96, 96, 3)).astype(np.float32)
 
-    ref = make_forward(g, fused_bn=True, fuse_regions=False,
-                       stem_s2d=False)(params, jnp.asarray(x))["heads"]
+    ref = make_forward(g, fused_bn=True)(params, jnp.asarray(x))["heads"]
 
     pf = PipelineForward(g, params, jax.devices()[:4], microbatches=1)
     heads = pf(x)

@@ -75,3 +75,46 @@ def test_trace_report_attributes_layers(tmp_path):
             g.layers[2].bflops, rel=1e-6)
     # the printed table ends with the device total
     assert any("TOTAL" in ln for ln in lines)
+
+
+def _gpu_events():
+    """A GPU trace as jax.profiler writes it: kernels on the device
+    process carry args.hlo_op; host launch events do not count."""
+    return [
+        {"ph": "M", "pid": 1, "name": "process_name",
+         "args": {"name": "/device:GPU:0"}},
+        {"ph": "M", "pid": 1, "tid": 13, "name": "thread_name",
+         "args": {"name": "Stream #13(Compute)"}},
+        {"ph": "M", "pid": 701, "name": "process_name",
+         "args": {"name": "/host:CPU"}},
+        {"ph": "X", "pid": 1, "tid": 13, "dur": 12.5, "name": "sm90_xmma",
+         "args": {"hlo_op": "cudnn-conv.3", "hlo_module": "jit_f"}},
+        {"ph": "X", "pid": 1, "tid": 13, "dur": 2.5, "name": "sm90_xmma",
+         "args": {"hlo_op": "cudnn-conv.3", "hlo_module": "jit_f"}},
+        {"ph": "X", "pid": 1, "tid": 13, "dur": 1.0, "name": "loop_fusion",
+         "args": {"hlo_op": "loop_fusion", "hlo_module": "jit_f"}},
+        {"ph": "X", "pid": 701, "tid": 5, "dur": 99.0, "name": "launch",
+         "args": {"hlo_op": "cudnn-conv.3"}},
+    ]
+
+
+def test_device_op_durations_reads_gpu_schema():
+    from darknet_tpu.utils.profiler import device_op_durations
+
+    assert device_op_durations(_gpu_events()) == {"cudnn-conv.3": 15.0,
+                                                  "loop_fusion": 1.0}
+    # CPU backend: no /device: process, ops run on host threads
+    cpu = [e for e in _gpu_events() if e.get("pid") == 701]
+    assert device_op_durations(cpu) == {"cudnn-conv.3": 99.0}
+
+
+def test_trace_report_fails_without_device_time(tmp_path, monkeypatch):
+    """A trace that attributes no time to any op is an error, not an
+    empty table."""
+    from darknet_tpu.utils import profiler
+
+    monkeypatch.setattr(profiler, "device_op_durations", lambda ev: {})
+    with pytest.raises(RuntimeError, match="no device time"):
+        profiler.trace_report(lambda x: x * 2, jnp.ones(4), iters=1,
+                              log=lambda *a: None,
+                              trace_dir=str(tmp_path / "t"))

@@ -373,7 +373,7 @@ anchors=10,14, 23,27
 
 def test_yolov4_608_full_resolution_parity(harness, tmp_path, rng):
     """BASELINE config 2 is yolov4 at FULL 608 — round 1 only gated 224.
-    The s2d-stem + CSP pipeline must hold activation parity at the real
+    The CSP pipeline must hold activation parity at the real
     deployment resolution (different padding/grid geometry than 224)."""
     from darknet_tpu import model_zoo
 

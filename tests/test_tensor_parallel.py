@@ -4,7 +4,7 @@ all-gathers and dp psums are inserted by XLA from the shardings alone.
 
 The reference has no model-parallel mode at all (SURVEY.md §2.7 — only
 whole-network replication via SyncNetworks, network_kernels.cu); this is
-a TPU-native extension, so the gate is internal consistency, not
+an extension, so the gate is internal consistency, not
 reference parity.
 """
 
@@ -54,7 +54,7 @@ def test_tp_inference_matches_single_device(rng):
     from darknet_tpu.nn.emit import make_forward
     from darknet_tpu.ops import yolo as yoloops
 
-    fwd = make_forward(g, fused_bn=True, fuse_regions=False, stem_s2d=False)
+    fwd = make_forward(g, fused_bn=True)
     r = fwd(params, jnp.asarray(x))
     outs = [yoloops.yolo_decode(t, l, 128, 128)
             for t, l in zip(r["heads"], g.heads())]
